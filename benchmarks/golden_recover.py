@@ -28,8 +28,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import cudaneuralrender_tpu as cnr
-from cudaneuralrender_tpu.utils import image_io
+import cudaneuralrender as cnr
+from cudaneuralrender.utils import image_io
 
 
 def golden_mask(name: str, res: int, flip: bool) -> np.ndarray:

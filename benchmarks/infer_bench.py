@@ -1,6 +1,6 @@
 """Batched-inference benchmark + correctness harness.
 
-TPU-native equivalent of the reference's `simpleInfer` binary
+Equivalent of the reference's `simpleInfer` binary
 (src/simpleInfer.cpp:81-194):
 
   * ``single``  — N sequential single-point inferences, per-call latency
@@ -10,8 +10,7 @@ TPU-native equivalent of the reference's `simpleInfer` binary
     through the 9-layer chain, wall-clock ms, plus the reference's
     correctness check: identical inputs must produce bit-identical outputs
     (batchTest verification, simpleInfer.cpp:135-146).
-  * ``sweep``   — batch-size sweep to expose the points/s roofline, including
-    the Pallas fused-chain variant (the CUTLASS-batched-GEMM analogue).
+  * ``sweep``   — batch-size sweep to expose the points/s roofline.
   * ``stream``  — bounded-memory chunked pipeline over a giant point set
     (default 16M): fixed-size chunks stream host->device->compute->host with
     a small in-flight window, so device memory stays O(window * chunk)
@@ -38,9 +37,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import cudaneuralrender_tpu as cnr
-from cudaneuralrender_tpu.models import mlp
-from cudaneuralrender_tpu.pallas import fused_mlp
+import cudaneuralrender as cnr
+from cudaneuralrender.models import mlp
 
 
 def _sync(x) -> float:
@@ -61,12 +59,8 @@ def single_test(params, n: int = 100) -> None:
           flush=True)
 
 
-def batch_test(params, batch: int, verify: bool = True, pallas: bool = False) -> float:
-    if pallas:
-        w, b, _, _ = fused_mlp.pack_params(params)
-        f = jax.jit(lambda x: fused_mlp.mlp_forward_pallas(w, b, x))
-    else:
-        f = jax.jit(lambda x: mlp.apply_scalar(params, x))
+def batch_test(params, batch: int, verify: bool = True) -> float:
+    f = jax.jit(lambda x: mlp.apply_scalar(params, x))
     x = jnp.zeros((batch, 3), jnp.float32)
     y = f(x)
     _sync(y)  # compile + warm
@@ -74,8 +68,7 @@ def batch_test(params, batch: int, verify: bool = True, pallas: bool = False) ->
     y = f(x)
     _sync(y)
     dt = time.perf_counter() - t0
-    tag = "pallas" if pallas else "xla"
-    print(f"batch inference [{tag}]: {batch} points in {dt*1e3:.2f} ms "
+    print(f"batch inference: {batch} points in {dt*1e3:.2f} ms "
           f"({batch/dt/1e6:.1f} Mpoints/s)", flush=True)
     if verify:
         vals = np.asarray(y)
@@ -90,7 +83,6 @@ def batch_test(params, batch: int, verify: bool = True, pallas: bool = False) ->
 def sweep(params) -> None:
     for b in (1 << 14, 1 << 17, 1 << 20, 1 << 22):
         batch_test(params, b, verify=False)
-        batch_test(params, b, verify=False, pallas=True)
 
 
 def stream_test(params, total: int, chunk: int, window: int = 4,
@@ -150,7 +142,7 @@ def stream_test(params, total: int, chunk: int, window: int = 4,
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", default="/root/reference/neuralGeometries/plane_1.h5")
+    ap.add_argument("--model", default="examples/assets/csg_demo.npz")
     ap.add_argument("--batch", type=int, default=1_000_000)
     ap.add_argument("--total", type=int, default=16_000_000,
                     help="total points for --mode stream")

@@ -1,6 +1,6 @@
 """Recover which matcap texture the reference goldens were shaded with.
 
-One TPU render produces the eye-space normals of every hit pixel; the 82
+One render produces the eye-space normals of every hit pixel; the 82
 matcap candidates are then swept entirely on the host (sampling is a numpy
 gather) against the golden's foreground color distribution.
 
@@ -22,11 +22,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import cudaneuralrender_tpu as cnr
-from cudaneuralrender_tpu.ops import camera as cam_lib
-from cudaneuralrender_tpu.ops import shading
-from cudaneuralrender_tpu.render import renderer
-from cudaneuralrender_tpu.utils import image_io
+import cudaneuralrender as cnr
+from cudaneuralrender.ops import camera as cam_lib
+from cudaneuralrender.ops import shading
+from cudaneuralrender.render import renderer
+from cudaneuralrender.utils import image_io
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -51,7 +51,7 @@ def main() -> int:
     def normals_and_hits():
         cam_to_world, world_to_cam = cam_lib.view_matrices(cam)
         origin, dirs = cam_lib.generate_rays(cam_to_world, args.res, args.res, cfg.focal)
-        from cudaneuralrender_tpu.ops import march
+        from cudaneuralrender.ops import march
 
         f = renderer.scene_fn(params, cfg, 0.0)
         res = march.sphere_trace(f, origin, dirs, max_steps=cfg.max_steps,

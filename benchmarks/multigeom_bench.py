@@ -22,9 +22,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import cudaneuralrender_tpu as cnr
-from cudaneuralrender_tpu.models import mlp
-from cudaneuralrender_tpu.render import multigeom
+import cudaneuralrender as cnr
+from cudaneuralrender.models import mlp
+from cudaneuralrender.render import multigeom
 
 
 def main() -> int:
@@ -72,7 +72,7 @@ def main() -> int:
 
     # Pipelined staged: per-geometry staged programs, one drain (the fast
     # path; vmapped-dense only wins when the dense march under-utilizes the
-    # chip, which the staged megakernel no longer does).
+    # chip, which the staged kernel path no longer does).
     cfg_staged = cfg.replace(march_impl="staged")
 
     def sync_list(xs):
@@ -95,7 +95,7 @@ def main() -> int:
           f"{t_batch/t_staged:.1f}x over vmap dense)")
 
     if args.out:
-        from cudaneuralrender_tpu.utils import image_io
+        from cudaneuralrender.utils import image_io
 
         sheet = multigeom.contact_sheet(imgs)
         image_io.save_png(args.out, image_io.to_uint8_image(np.asarray(sheet)))

@@ -1,4 +1,4 @@
-"""Decompose the staged 1080p render into per-component costs on the TPU.
+"""Decompose the staged 1080p render into per-component costs on the device.
 
 Prints a timing line per component (median of --reps post-warmup execs,
 scalar-fetch synced). Run in one process so remote compiles amortize.
@@ -17,12 +17,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import cudaneuralrender_tpu as cnr
-from cudaneuralrender_tpu.models import mlp
-from cudaneuralrender_tpu.ops import camera as camera_lib
-from cudaneuralrender_tpu.ops import march
-from cudaneuralrender_tpu.pallas import fused_mlp
-from cudaneuralrender_tpu.render import renderer
+import cudaneuralrender as cnr
+from cudaneuralrender.models import mlp
+from cudaneuralrender.ops import camera as camera_lib
+from cudaneuralrender.ops import march
+from cudaneuralrender.render import renderer
 
 
 def timed(name, fn, *args, reps=5, **kw):
@@ -45,7 +44,7 @@ def main():
     w, h = (int(v) for v in args.res.split("x"))
     n = w * h
 
-    params = cnr.load("/root/reference/neuralGeometries/plane_1.h5")
+    params = cnr.load("examples/assets/csg_demo.npz")
     cfg = cnr.RenderConfig(width=w, height=h, scene="neural_raw", max_steps=6000, march_impl="staged")
     cam = cnr.Camera(rotation_y=25.0, rotation_x=10.0)
     cam_to_world, world_to_cam = camera_lib.view_matrices(cam)
@@ -58,13 +57,6 @@ def main():
     f_lo = jax.jit(lambda p: mlp.apply_scalar(params, p, precision=jax.lax.Precision.DEFAULT))
     timed("mlp XLA HIGHEST 1 eval (all rays)", f_hi, pts, reps=args.reps)
     timed("mlp XLA DEFAULT 1 eval (all rays)", f_lo, pts, reps=args.reps)
-
-    # --- pallas fused MLP single eval
-    weights, biases, n_in, hidden = fused_mlp.pack_params(params)
-    g_hi = lambda p: fused_mlp.mlp_forward_pallas(weights, biases, p, precision=jax.lax.Precision.HIGHEST)
-    g_lo = lambda p: fused_mlp.mlp_forward_pallas(weights, biases, p, precision=jax.lax.Precision.DEFAULT)
-    timed("mlp pallas HIGHEST 1 eval", g_hi, pts, reps=args.reps)
-    timed("mlp pallas DEFAULT 1 eval", g_lo, pts, reps=args.reps)
 
     # --- 16 dense march steps (mixed coarse phase analogue)
     def dense16(o, d, prec):

@@ -27,13 +27,13 @@ import jax
 import jax.numpy as jnp
 import optax
 
-import cudaneuralrender_tpu as cnr
-from cudaneuralrender_tpu.diff import losses, solve
+import cudaneuralrender as cnr
+from cudaneuralrender.diff import losses, solve
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", default="/root/reference/neuralGeometries/plane_1.h5")
+    ap.add_argument("--model", default="examples/assets/csg_demo.npz")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--res", type=int, default=64)
     ap.add_argument("--views", type=int, default=4)

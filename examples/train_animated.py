@@ -29,11 +29,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import cudaneuralrender_tpu as cnr
-from cudaneuralrender_tpu.diff import train
-from cudaneuralrender_tpu.models import mlp
-from cudaneuralrender_tpu.ops import sdf
-from cudaneuralrender_tpu.utils import image_io
+import cudaneuralrender as cnr
+from cudaneuralrender.diff import train
+from cudaneuralrender.models import mlp
+from cudaneuralrender.ops import sdf
+from cudaneuralrender.utils import image_io
 
 
 def target_sdf(p: jax.Array, frame: jax.Array) -> jax.Array:
@@ -74,7 +74,7 @@ def main() -> int:
     ckpt = f"{args.out}.npz"
     cnr.save_pytree(ckpt, params)
     print(f"saved checkpoint: {ckpt}")
-    from cudaneuralrender_tpu.models import checkpoint as ckpt_lib
+    from cudaneuralrender.models import checkpoint as ckpt_lib
 
     ckpt_lib.save_keras_h5(f"{args.out}.h5", params)
     print(f"saved Keras-layout checkpoint: {args.out}.h5")

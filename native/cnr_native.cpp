@@ -1,6 +1,6 @@
-// cnr_native: native runtime components for cudaneuralrender_tpu.
+// cnr_native: native runtime components for cudaneuralrender.
 //
-// TPU-native equivalents of the reference renderer's native runtime pieces:
+// Equivalents of the reference renderer's native runtime pieces:
 //   * PNG encode/decode  — replaces the vendored lodepng
 //     (reference src/common/lodepng.{h,cpp}) with a small zlib-backed codec.
 //   * Async frame writer — replaces the CUDA-GL PBO write-back path

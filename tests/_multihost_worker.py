@@ -23,7 +23,7 @@ def main() -> int:
     coordinator, nprocs, pid, outdir, model = sys.argv[1:6]
     nprocs, pid = int(nprocs), int(pid)
 
-    from cudaneuralrender_tpu.parallel import multihost
+    from cudaneuralrender.parallel import multihost
 
     multihost.initialize(coordinator, nprocs, pid)
     assert jax.process_count() == nprocs, jax.process_count()
@@ -31,9 +31,9 @@ def main() -> int:
 
     import numpy as np
 
-    import cudaneuralrender_tpu as cnr
-    from cudaneuralrender_tpu.diff import train as train_lib
-    from cudaneuralrender_tpu.parallel.sharding import pixel_train_step_sharded
+    import cudaneuralrender as cnr
+    from cudaneuralrender.diff import train as train_lib
+    from cudaneuralrender.parallel.sharding import pixel_train_step_sharded
 
     params = cnr.load(model)
     cfg = cnr.RenderConfig(width=32, height=32, scene="neural_raw", max_steps=300)
@@ -75,8 +75,8 @@ def main() -> int:
     #     reach every process through _memo_lookup_synced, so the whole
     #     world dispatches the taught schedule in lockstep — zero overflow
     #     retries on a config whose BASE schedule is overflow-prone.
-    from cudaneuralrender_tpu.render import renderer as renderer_lib
-    from cudaneuralrender_tpu.utils import memo as memo_store
+    from cudaneuralrender.render import renderer as renderer_lib
+    from cudaneuralrender.utils import memo as memo_store
 
     prone = cfg.replace(
         march_impl="staged", coarse_pallas=False, refine_pallas=False,
@@ -87,7 +87,7 @@ def main() -> int:
     if pid == 0:
         taught = prone.replace(refine_schedule=((1, 4), (1, 0)))
         renderer_lib.memo_teach(params, prone, taught)
-    from cudaneuralrender_tpu.parallel.sharding import (
+    from cudaneuralrender.parallel.sharding import (
         render_image_sharded_staged,
     )
 

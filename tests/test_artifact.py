@@ -17,8 +17,8 @@ import sys
 import numpy as np
 import pytest
 
-import cudaneuralrender_tpu as cnr
-from cudaneuralrender_tpu.utils import image_io
+import cudaneuralrender as cnr
+from cudaneuralrender.utils import image_io
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ASSETS = os.path.join(HERE, "..", "examples", "assets")
@@ -72,8 +72,8 @@ def test_trained_artifact_sharded_render(artifact_params):
     of 16384 pixels for this geometry)."""
     import jax
 
-    from cudaneuralrender_tpu.parallel import mesh as mesh_lib
-    from cudaneuralrender_tpu.parallel.sharding import (
+    from cudaneuralrender.parallel import mesh as mesh_lib
+    from cudaneuralrender.parallel.sharding import (
         render_image_sharded_staged,
     )
 
@@ -81,7 +81,7 @@ def test_trained_artifact_sharded_render(artifact_params):
         pytest.skip("needs 8 virtual devices")
     cfg = CFG.replace(width=64, height=64, max_steps=300,
                       coarse_pallas=False, refine_pallas=False,
-                      tail_pallas=False, adaptive_rungs=False)
+                      adaptive_rungs=False)
     m = mesh_lib.make_mesh((8,), ("data",), jax.devices()[:8])
     cnr.reset_schedule_memo()
     sharded = np.asarray(render_image_sharded_staged(
@@ -98,7 +98,7 @@ def test_trained_artifact_cli(tmp_path):
     out = tmp_path / "cli_demo.png"
     env = dict(os.environ, JAX_PLATFORMS="cpu", CNR_SCHEDULE_MEMO="")
     r = subprocess.run(
-        [sys.executable, "-m", "cudaneuralrender_tpu.cli",
+        [sys.executable, "-m", "cudaneuralrender.cli",
          "-i", H5, "--single", "-W", "64", "-H", "64",
          "-ry", "30", "-rx", "-20", "-o", str(out)],
         cwd=os.path.join(HERE, ".."), env=env,
@@ -124,7 +124,7 @@ def test_animation_artifact_and_cli_mode(tmp_path):
     env = dict(os.environ, JAX_PLATFORMS="cpu", CNR_SCHEDULE_MEMO="")
     out = tmp_path / "anim.png"
     r = subprocess.run(
-        [sys.executable, "-m", "cudaneuralrender_tpu.cli",
+        [sys.executable, "-m", "cudaneuralrender.cli",
          "-i", ANIM_H5, "--animation", "--single", "-W", "64", "-H", "64",
          "--steps", "300", "-rx", "-25", "-ry", "20", "-o", str(out)],
         cwd=os.path.join(HERE, ".."), env=env,
@@ -136,7 +136,7 @@ def test_animation_artifact_and_cli_mode(tmp_path):
 
     # 3-input model + --animation: friendly validation error, exit code 2.
     r2 = subprocess.run(
-        [sys.executable, "-m", "cudaneuralrender_tpu.cli",
+        [sys.executable, "-m", "cudaneuralrender.cli",
          "-i", H5, "--animation", "--single", "-W", "32", "-H", "32",
          "-o", str(tmp_path / "x.png")],
         cwd=os.path.join(HERE, ".."), env=env,

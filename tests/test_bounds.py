@@ -8,8 +8,8 @@ sphere scene is the meaningful shrink case.
 """
 import numpy as np
 
-import cudaneuralrender_tpu as cnr
-from cudaneuralrender_tpu.render import renderer
+import cudaneuralrender as cnr
+from cudaneuralrender.render import renderer
 
 
 def test_fit_analytic_sphere_shrinks():

@@ -3,7 +3,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cudaneuralrender_tpu.ops import camera as cam
+from cudaneuralrender.ops import camera as cam
 
 
 def test_default_camera_matrices():

@@ -5,7 +5,7 @@ import pytest
 import h5py
 import jax.numpy as jnp
 
-from cudaneuralrender_tpu.models import checkpoint, mlp
+from cudaneuralrender.models import checkpoint, mlp
 
 
 def test_load_plane1_shapes(plane1_params):
@@ -92,7 +92,7 @@ def test_load_dispatch(tmp_path, plane1_path):
 
 def test_orbax_roundtrip(tmp_path, plane1_params):
     pytest.importorskip("orbax.checkpoint")
-    from cudaneuralrender_tpu.models import checkpoint
+    from cudaneuralrender.models import checkpoint
 
     path = str(tmp_path / "orbax_ckpt")
     checkpoint.save_orbax(path, plane1_params)

@@ -6,8 +6,8 @@ import os
 import numpy as np
 import pytest
 
-from cudaneuralrender_tpu import cli
-from cudaneuralrender_tpu.utils import image_io
+from cudaneuralrender import cli
+from cudaneuralrender.utils import image_io
 
 H5 = "/root/reference/neuralGeometries/plane_1.h5"
 
@@ -70,7 +70,7 @@ def test_save_ckpt_roundtrip(tmp_path):
                    "--steps", "16", "--save-ckpt", ck,
                    "-o", str(tmp_path / "x.png")])
     assert rc == 0
-    import cudaneuralrender_tpu as cnr
+    import cudaneuralrender as cnr
 
     a = cnr.load(H5)
     b = cnr.load(ck)

@@ -4,7 +4,7 @@ for SURVEY.md §3.6.3)."""
 import numpy as np
 import jax.numpy as jnp
 
-from cudaneuralrender_tpu.ops import compaction
+from cudaneuralrender.ops import compaction
 
 
 def test_capacity_bucket():

@@ -8,10 +8,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import cudaneuralrender_tpu as cnr
-from cudaneuralrender_tpu.diff import implicit, losses, train
-from cudaneuralrender_tpu.models import mlp
-from cudaneuralrender_tpu.ops import march, sdf
+import cudaneuralrender as cnr
+from cudaneuralrender.diff import implicit, losses, train
+from cudaneuralrender.models import mlp
+from cudaneuralrender.ops import march, sdf
 
 
 def test_implicit_t_analytic_sphere_radius_grad():
@@ -175,7 +175,7 @@ def test_eikonal_and_silhouette_losses_finite(tiny_params):
 # (round-2 VERDICT item 1: the staged scheduler as the grad step's t*-solver)
 # ---------------------------------------------------------------------------
 
-from cudaneuralrender_tpu.diff import solve  # noqa: E402
+from cudaneuralrender.diff import solve  # noqa: E402
 
 FULL_CFG = cnr.RenderConfig(
     width=64, height=64, scene="neural_raw", max_steps=256,
@@ -229,8 +229,8 @@ def test_solve_surface_mixed_close_to_dense(tiny_params):
     both = hf & hd
     assert both.sum() > 100
 
-    from cudaneuralrender_tpu.ops import camera as camera_lib
-    from cudaneuralrender_tpu.render.renderer import scene_fn
+    from cudaneuralrender.ops import camera as camera_lib
+    from cudaneuralrender.render.renderer import scene_fn
 
     c2w, _ = camera_lib.view_matrices(cam)
     origin, dirs = camera_lib.generate_rays(c2w, 64, 64, MIXED_CFG.focal)
@@ -297,7 +297,7 @@ def test_train_state_checkpoint_resume(tmp_path, plane1_params):
     run (weights, adam moments, and step counter all restored)."""
     import jax
     import jax.numpy as jnp
-    from cudaneuralrender_tpu.diff import train
+    from cudaneuralrender.diff import train
 
     def sample_fn(key, n):
         pts = jax.random.uniform(key, (n, 3), minval=-1.0, maxval=1.0)
@@ -331,7 +331,7 @@ def test_train_state_checkpoint_resume(tmp_path, plane1_params):
 
 
 def test_load_train_state_shape_mismatch(tmp_path, plane1_params):
-    from cudaneuralrender_tpu.diff import train
+    from cudaneuralrender.diff import train
     import pytest
 
     state = train.init_train_state(plane1_params, 1e-3)
@@ -351,8 +351,8 @@ def test_pixel_loss_compact_matches_dense(plane1_params):
     and the background residual is a constant summed densely."""
     import jax
     import jax.numpy as jnp
-    from cudaneuralrender_tpu.diff import losses
-    from cudaneuralrender_tpu.diff.solve import solve_surface
+    from cudaneuralrender.diff import losses
+    from cudaneuralrender.diff.solve import solve_surface
 
     cfg = cnr.RenderConfig(width=32, height=32, scene="neural_raw",
                            max_steps=300, march_impl="staged")
@@ -384,8 +384,8 @@ def test_pixel_train_step_fast_uses_compact_bucket(plane1_params):
     """pixel_train_step_fast must run (and reduce loss) through the
     compacted grad path end-to-end."""
     import jax.numpy as jnp
-    from cudaneuralrender_tpu.diff import train
-    from cudaneuralrender_tpu.render import renderer
+    from cudaneuralrender.diff import train
+    from cudaneuralrender.render import renderer
 
     cfg = cnr.RenderConfig(width=32, height=32, scene="neural_raw",
                            max_steps=300, march_impl="staged",
@@ -414,8 +414,8 @@ def test_train_loop_fast_matches_sequential(plane1_params):
     reproduce the sequential pixel_train_step_fast trajectory: same losses,
     same final weights — pipelining only reorders host fetches, never
     device math."""
-    import cudaneuralrender_tpu as cnr
-    from cudaneuralrender_tpu.diff import train
+    import cudaneuralrender as cnr
+    from cudaneuralrender.diff import train
 
     cfg = cnr.RenderConfig(width=32, height=32, scene="neural_raw",
                            max_steps=200, march_impl="staged",
@@ -448,8 +448,8 @@ def test_train_loop_fast_overflow_redo(plane1_params):
     """A mid-loop fast-path failure (tiny refine buckets) must roll back
     and redo synchronously — the loop's losses still track the sequential
     trajectory within the widened-schedule tolerance."""
-    import cudaneuralrender_tpu as cnr
-    from cudaneuralrender_tpu.diff import train
+    import cudaneuralrender as cnr
+    from cudaneuralrender.diff import train
 
     cnr.reset_schedule_memo()
     cfg = cnr.RenderConfig(width=32, height=32, scene="neural_raw",
@@ -470,13 +470,13 @@ def test_pixel_loss_packed_matches_compact(plane1_params):
     """The packed-bundle grad path (losses.pixel_loss_packed, fed by
     solve_surface_packed_async — both big sorts cancelled) must produce the
     same loss and gradients as the image-order compact path."""
-    import cudaneuralrender_tpu as cnr
-    from cudaneuralrender_tpu.diff import losses
-    from cudaneuralrender_tpu.diff.solve import (
+    import cudaneuralrender as cnr
+    from cudaneuralrender.diff import losses
+    from cudaneuralrender.diff.solve import (
         solve_surface, solve_surface_packed_async,
     )
-    from cudaneuralrender_tpu.ops import compaction
-    from cudaneuralrender_tpu.render.renderer import _conv_within
+    from cudaneuralrender.ops import compaction
+    from cudaneuralrender.render.renderer import _conv_within
 
     # compact_min small enough that the first refine bucket is a real
     # prefix at 32x32 (within-bound exists -> the packed path engages)
@@ -521,8 +521,8 @@ def test_pixel_train_step_fast_uses_packed_path(plane1_params):
     the same training trajectory whether the packed handoff is active
     (mixed precision) or not — covered by comparing consecutive fast steps
     to the known-good first synchronous step trajectory."""
-    import cudaneuralrender_tpu as cnr
-    from cudaneuralrender_tpu.diff import train
+    import cudaneuralrender as cnr
+    from cudaneuralrender.diff import train
 
     cfg = cnr.RenderConfig(width=32, height=32, scene="neural_raw",
                            max_steps=200, march_impl="staged",
@@ -531,7 +531,7 @@ def test_pixel_train_step_fast_uses_packed_path(plane1_params):
     target = jnp.asarray(np.asarray(cnr.render_image(
         plane1_params, cnr.Camera(rotation_y=24.0),
         cfg.replace(march_impl="while"))))
-    from cudaneuralrender_tpu.render.renderer import _conv_within
+    from cudaneuralrender.render.renderer import _conv_within
 
     # compact_min small enough that the within-bound exists at 32x32, so
     # the second (pipelined) step MUST take the packed branch

@@ -4,8 +4,8 @@ exhausted retries raise."""
 import numpy as np
 import pytest
 
-import cudaneuralrender_tpu as cnr
-from cudaneuralrender_tpu.parallel import fault
+import cudaneuralrender as cnr
+from cudaneuralrender.parallel import fault
 
 
 def _cfg():
@@ -49,8 +49,8 @@ def test_render_tiled_staged_band_path(plane1_params):
     """Band rendering through the STAGED fast path (fault.render_band_auto):
     bands assembled must equal the single-program staged render exactly
     (per-lane march math is bucket-layout-independent)."""
-    import cudaneuralrender_tpu as cnr
-    from cudaneuralrender_tpu.parallel import fault
+    import cudaneuralrender as cnr
+    from cudaneuralrender.parallel import fault
 
     cfg = cnr.RenderConfig(width=32, height=32, scene="neural_raw",
                            max_steps=200, march_impl="staged",
@@ -63,8 +63,8 @@ def test_render_tiled_staged_band_path(plane1_params):
 
 def test_render_tiled_staged_with_faults(plane1_params):
     """Injected faults retry staged bands exactly like dense ones."""
-    import cudaneuralrender_tpu as cnr
-    from cudaneuralrender_tpu.parallel import fault
+    import cudaneuralrender as cnr
+    from cudaneuralrender.parallel import fault
 
     cfg = cnr.RenderConfig(width=32, height=32, scene="neural_raw",
                            max_steps=200, march_impl="staged",

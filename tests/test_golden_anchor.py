@@ -5,8 +5,10 @@ Everything else in the suite proves framework == oracle; this file closes
 the loop oracle == reference-binary (round-2 VERDICT missing #5). The
 recovered interactive camera state (5-DOF: rotate/pan/zoom mouse drags,
 src/main.cpp:310-353) and the identified matcap live in
-benchmarks/golden_anchor.json (produced by benchmarks/golden_anchor.py on
-TPU; the oracle side re-verified here on CPU).
+benchmarks/golden_anchor.json (produced by benchmarks/golden_anchor.py;
+the oracle side re-verified here on CPU). The golden renders and the
+geometries belong to the reference repository and are not shipped here:
+without them the test skips.
 
 The oracle marches every STRIDE-th pixel of the full 1024^2 golden grid —
 reference_oracle.render(stride=...) uses the EXACT same rays as
@@ -23,8 +25,8 @@ import os
 import numpy as np
 import pytest
 
-import cudaneuralrender_tpu as cnr
-from cudaneuralrender_tpu.utils import image_io
+import cudaneuralrender as cnr
+from cudaneuralrender.utils import image_io
 
 import reference_oracle as oracle
 
@@ -67,7 +69,10 @@ def test_oracle_matches_reference_binary_golden(name):
     rec = anchors[name]
     pose = rec["pose"]
 
-    golden = image_io.load_ppm(f"{GEOM}/{name}.h5.ppm")
+    golden_path = f"{GEOM}/{name}.h5.ppm"
+    if not (os.path.exists(golden_path) and os.path.exists(f"{GEOM}/{name}.h5")):
+        pytest.skip(f"reference golden render and geometry not available: {golden_path}")
+    golden = image_io.load_ppm(golden_path)
     if rec["flip"]:
         golden = golden[::-1]
     g = golden[::STRIDE, ::STRIDE].astype(np.int32)

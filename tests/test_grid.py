@@ -5,8 +5,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import cudaneuralrender_tpu as cnr
-from cudaneuralrender_tpu.ops import grid, march, sdf
+import cudaneuralrender as cnr
+from cudaneuralrender.ops import grid, march, sdf
 
 
 BOUND = 1.26
@@ -39,9 +39,9 @@ def test_trilinear_matches_field():
 def test_grid_march_never_crosses_surface():
     g = grid.bake(_sphere, 32, BOUND)
     cam_to_world, _ = __import__(
-        "cudaneuralrender_tpu.ops.camera", fromlist=["view_matrices"]
+        "cudaneuralrender.ops.camera", fromlist=["view_matrices"]
     ).view_matrices(cnr.Camera(rotation_y=30.0))
-    from cudaneuralrender_tpu.ops import camera as cam_lib
+    from cudaneuralrender.ops import camera as cam_lib
 
     origin, dirs = cam_lib.generate_rays(cam_to_world, 16, 16, 2.0)
     st = march.init_state(origin, dirs, (0, 0, 0), 1.2)

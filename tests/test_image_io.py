@@ -1,7 +1,7 @@
 """Image I/O tests (reference src/neuralUtils/image.cu semantics)."""
 import numpy as np
 
-from cudaneuralrender_tpu.utils import image_io
+from cudaneuralrender.utils import image_io
 
 
 def test_to_uint8_flips_vertically():

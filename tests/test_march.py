@@ -8,7 +8,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from cudaneuralrender_tpu.ops import march, sdf
+from cudaneuralrender.ops import march, sdf
 
 
 def _axis_rays():

@@ -8,7 +8,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from cudaneuralrender_tpu.models import mlp
+from cudaneuralrender.models import mlp
 
 
 def numpy_mlp(params, x):

@@ -5,8 +5,8 @@ import numpy as np
 import jax
 import pytest
 
-import cudaneuralrender_tpu as cnr
-from cudaneuralrender_tpu.render import multigeom
+import cudaneuralrender as cnr
+from cudaneuralrender.render import multigeom
 
 GEOM_DIR = "/root/reference/neuralGeometries"
 
@@ -54,7 +54,7 @@ def test_render_batch_cameras(all_geometries):
 
 def test_mismatched_architectures_rejected(all_geometries):
     import jax.numpy as jnp
-    from cudaneuralrender_tpu.models import mlp as mlp_lib
+    from cudaneuralrender.models import mlp as mlp_lib
 
     other = mlp_lib.init_mlp(jax.random.key(0), sizes=(3, 8, 1))
     with pytest.raises(ValueError, match="mismatched"):
@@ -74,8 +74,8 @@ def test_render_batch_staged_expert_parallel(plane1_params):
     runs each staged program where its params live)."""
     if len(jax.devices()) < 4:
         pytest.skip("needs multiple virtual devices")
-    from cudaneuralrender_tpu.models import mlp as mlp_lib
-    from cudaneuralrender_tpu.render import multigeom
+    from cudaneuralrender.models import mlp as mlp_lib
+    from cudaneuralrender.render import multigeom
 
     geoms = [plane1_params] + [
         mlp_lib.init_mlp(jax.random.key(i)) for i in (1, 2)

@@ -17,8 +17,8 @@ import sys
 import numpy as np
 import pytest
 
-import cudaneuralrender_tpu as cnr
-from cudaneuralrender_tpu.parallel import multihost
+import cudaneuralrender as cnr
+from cudaneuralrender.parallel import multihost
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO_ROOT, "tests", "_multihost_worker.py")
@@ -93,7 +93,7 @@ def test_failover_bands_cover_failed_host(multihost_run, reference_image):
 
 
 def test_cross_host_train_step_matches_single_process(multihost_run, plane1_params):
-    from cudaneuralrender_tpu.diff import train as train_lib
+    from cudaneuralrender.diff import train as train_lib
 
     cfg = cnr.RenderConfig(width=32, height=32, scene="neural_raw", max_steps=300)
     cam = cnr.Camera(rotation_y=30.0, rotation_x=10.0)

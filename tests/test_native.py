@@ -4,7 +4,7 @@ import os
 import numpy as np
 import pytest
 
-from cudaneuralrender_tpu.native import codec
+from cudaneuralrender.native import codec
 
 
 pytestmark = pytest.mark.skipif(
@@ -64,7 +64,7 @@ def test_async_writer(tmp_path, rng):
 
 
 def test_image_io_prefers_native(tmp_path, rng):
-    from cudaneuralrender_tpu.utils import image_io
+    from cudaneuralrender.utils import image_io
 
     img = rng.integers(0, 256, size=(10, 10, 4), dtype=np.uint8)
     p = str(tmp_path / "via_io.png")
@@ -79,7 +79,7 @@ def test_native_decode_palette_png(tmp_path):
     them)."""
     from PIL import Image
 
-    from cudaneuralrender_tpu.native import codec
+    from cudaneuralrender.native import codec
 
     if not codec.available():
         import pytest
@@ -101,7 +101,7 @@ def test_native_decode_palette_png(tmp_path):
 def test_native_decode_palette_trns(tmp_path):
     from PIL import Image
 
-    from cudaneuralrender_tpu.native import codec
+    from cudaneuralrender.native import codec
 
     if not codec.available():
         import pytest

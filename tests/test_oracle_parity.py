@@ -23,8 +23,8 @@ Documented tolerances (measured headroom ~2x on CPU):
 import numpy as np
 import pytest
 
-import cudaneuralrender_tpu as cnr
-from cudaneuralrender_tpu.utils import image_io
+import cudaneuralrender as cnr
+from cudaneuralrender.utils import image_io
 
 import reference_oracle as oracle
 
@@ -70,7 +70,7 @@ def test_plane1_facing_allclose(plane1_params, rx, ry):
 
 @pytest.fixture(scope="module")
 def car1_params(car1_path):
-    from cudaneuralrender_tpu.models import checkpoint
+    from cudaneuralrender.models import checkpoint
 
     return checkpoint.load_keras_h5(car1_path)
 
@@ -119,8 +119,8 @@ def test_animation_inputs_allclose(rng):
     import jax
     import jax.numpy as jnp
 
-    from cudaneuralrender_tpu.models import mlp
-    from cudaneuralrender_tpu.render.renderer import scene_fn
+    from cudaneuralrender.models import mlp
+    from cudaneuralrender.render.renderer import scene_fn
 
     params = mlp.init_mlp(jax.random.key(7), sizes=(4, 16, 16, 1))
     pts = rng.uniform(-1.0, 1.0, (2048, 3)).astype(np.float32)
@@ -136,7 +136,7 @@ def test_rgba_pack_bit_parity(rng):
     """pack_rgba_u32 == the oracle's rgbaFloatToInt, bit for bit."""
     import jax.numpy as jnp
 
-    from cudaneuralrender_tpu.ops import shading
+    from cudaneuralrender.ops import shading
 
     colors = rng.uniform(-0.2, 1.2, (4096, 4)).astype(np.float32)
     got = np.asarray(shading.pack_rgba_u32(jnp.asarray(colors)))

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import cudaneuralrender_tpu as cnr
-from cudaneuralrender_tpu.parallel import dryrun, mesh as mesh_lib
-from cudaneuralrender_tpu.parallel.sharding import render_image_sharded
-from cudaneuralrender_tpu.models import mlp
+import cudaneuralrender as cnr
+from cudaneuralrender.parallel import dryrun, mesh as mesh_lib
+from cudaneuralrender.parallel.sharding import render_image_sharded
+from cudaneuralrender.models import mlp
 
 
 @pytest.fixture(scope="module")
@@ -71,14 +71,14 @@ def test_dryrun_odd_device_count(eight_devices):
     dryrun.run(5)
 
 
-def test_pixel_train_step_sharded_matches_unsharded(eight_devices):
+def test_pixel_train_step_sharded_matches_unsharded(eight_devices, csg_params):
     """BASELINE config 5: tile-sharded differentiable render with grad
     all-reduce must produce exactly the single-device gradients/updates."""
-    from cudaneuralrender_tpu.diff import train as train_lib
-    from cudaneuralrender_tpu.parallel.sharding import pixel_train_step_sharded
+    from cudaneuralrender.diff import train as train_lib
+    from cudaneuralrender.parallel.sharding import pixel_train_step_sharded
 
     m = mesh_lib.make_mesh((8,), ("data",), eight_devices)
-    params = cnr.load("/root/reference/neuralGeometries/plane_1.h5")
+    params = csg_params
     cfg = cnr.RenderConfig(width=16, height=16, scene="neural_raw", max_steps=64)
     cam = cnr.Camera(rotation_y=20.0)
     target = jnp.asarray(
@@ -97,15 +97,15 @@ def test_pixel_train_step_sharded_matches_unsharded(eight_devices):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-4, atol=1e-6)
 
 
-def test_pixel_train_step_sharded_precomputed_solve(eight_devices):
+def test_pixel_train_step_sharded_precomputed_solve(eight_devices, csg_params):
     """Sharded grad step fed by the staged surface solve (diff/solve.py):
     gradients must match the in-trace dense-march sharded step exactly at
     march_precision='full' (identical t*)."""
-    from cudaneuralrender_tpu.diff import solve, train as train_lib
-    from cudaneuralrender_tpu.parallel.sharding import pixel_train_step_sharded
+    from cudaneuralrender.diff import solve, train as train_lib
+    from cudaneuralrender.parallel.sharding import pixel_train_step_sharded
 
     m = mesh_lib.make_mesh((8,), ("data",), eight_devices)
-    params = cnr.load("/root/reference/neuralGeometries/plane_1.h5")
+    params = csg_params
     cfg = cnr.RenderConfig(width=16, height=16, scene="neural_raw",
                            max_steps=64, march_precision="full")
     cam = cnr.Camera(rotation_y=20.0)
@@ -137,9 +137,8 @@ def test_staged_sharded_matches_single_device(eight_devices, plane1_params):
     cfg = cnr.RenderConfig(
         width=512, height=512, scene="neural_raw", max_steps=6000,
         march_impl="staged", coarse_pallas=False, refine_pallas=False,
-        tail_pallas=False,
     )
-    from cudaneuralrender_tpu.parallel.sharding import (
+    from cudaneuralrender.parallel.sharding import (
         render_image_sharded_staged,
     )
 
@@ -153,22 +152,22 @@ def test_staged_sharded_matches_single_device(eight_devices, plane1_params):
     np.testing.assert_array_equal(sharded, single)
 
 
-def test_staged_sharded_with_kernels(eight_devices, plane1_params):
-    """Same parity with the Pallas megakernel phases ON (interpret mode on
+def test_staged_sharded_with_kernels(eight_devices, csg_params):
+    """Same parity with the march kernel phases ON (interpret mode on
     CPU) — certifies the actual production shard body, tiny resolution."""
     cfg = cnr.RenderConfig(
         width=32, height=32, scene="neural_raw", max_steps=200,
         march_impl="staged",
     )
-    from cudaneuralrender_tpu.parallel.sharding import (
+    from cudaneuralrender.parallel.sharding import (
         render_image_sharded_staged,
     )
 
     m = mesh_lib.make_mesh((8,), ("data",), eight_devices)
     cam = cnr.Camera(rotation_y=25.0, rotation_x=10.0)
     sharded = np.asarray(render_image_sharded_staged(
-        plane1_params, cam, cfg, m))
-    single = np.asarray(cnr.render_staged(plane1_params, cam, cfg))
+        csg_params, cam, cfg, m))
+    single = np.asarray(cnr.render_staged(csg_params, cam, cfg))
     hit_a, hit_b = sharded[..., 3] > 0, single[..., 3] > 0
     # kernel tile boundaries differ between shard layouts; identical hit
     # sets and colors are still expected (per-lane determinism)
@@ -179,10 +178,10 @@ def test_staged_sharded_with_kernels(eight_devices, plane1_params):
 def test_staged_sharded_matcap(eight_devices, plane1_params, matcap_path):
     """Matcap shading through the sharded staged path (gather + eye-space
     transform ride the shard body)."""
-    from cudaneuralrender_tpu.parallel.sharding import (
+    from cudaneuralrender.parallel.sharding import (
         render_image_sharded_staged,
     )
-    from cudaneuralrender_tpu.utils import image_io
+    from cudaneuralrender.utils import image_io
 
     matcap = jnp.asarray(image_io.load_matcap(matcap_path))
     cfg = cnr.RenderConfig(
@@ -202,7 +201,7 @@ def test_staged_sharded_matcap(eight_devices, plane1_params, matcap_path):
 def test_staged_sharded_overflow_widens(eight_devices, plane1_params):
     """A refine overflow on any shard must retry the whole frame with the
     widened schedule through the same memo machinery as single-device."""
-    from cudaneuralrender_tpu.parallel.sharding import (
+    from cudaneuralrender.parallel.sharding import (
         render_image_sharded_staged,
     )
 
@@ -230,8 +229,8 @@ def test_staged_sharded_overflow_widens(eight_devices, plane1_params):
 def test_solve_surface_sharded_matches(eight_devices, plane1_params):
     """Sharded staged t*-solve == single-device staged solve, and it feeds
     pixel_train_step_sharded to reproduce the dense-march gradients."""
-    from cudaneuralrender_tpu.diff import solve, train as train_lib
-    from cudaneuralrender_tpu.parallel.sharding import (
+    from cudaneuralrender.diff import solve, train as train_lib
+    from cudaneuralrender.parallel.sharding import (
         pixel_train_step_sharded, solve_surface_sharded,
     )
 
@@ -265,7 +264,7 @@ def test_staged_sharded_animation_mode(eight_devices):
     input, requiring a 4-input network) through the sharded staged path —
     the frame column and the per-shard subset body must agree with
     single-device."""
-    from cudaneuralrender_tpu.parallel.sharding import (
+    from cudaneuralrender.parallel.sharding import (
         render_image_sharded_staged,
     )
 
@@ -291,15 +290,15 @@ def test_per_shard_stats_and_interleave_balance(eight_devices, plane1_params):
     metrics in stats_out; row-interleaved shard assignment keeps the
     near-set spread tight (imbalance <= 5% on plane_1 512²/8) while
     contiguous bands concentrate the object into few shards."""
-    from cudaneuralrender_tpu.ops import camera as camera_lib
-    from cudaneuralrender_tpu.parallel import sharding
-    from cudaneuralrender_tpu.render import renderer as renderer_lib
+    from cudaneuralrender.ops import camera as camera_lib
+    from cudaneuralrender.parallel import sharding
+    from cudaneuralrender.render import renderer as renderer_lib
 
     cnr.reset_schedule_memo()
     cfg = cnr.RenderConfig(
         width=512, height=512, scene="neural_raw", max_steps=1200,
         march_impl="staged", coarse_pallas=False, refine_pallas=False,
-        tail_pallas=False, adaptive_rungs=False,
+        adaptive_rungs=False,
     )
     m = mesh_lib.make_mesh((8,), ("data",), eight_devices)
     cam = cnr.Camera(rotation_y=25.0, rotation_x=10.0)

@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-import cudaneuralrender_tpu as cnr
-from cudaneuralrender_tpu.ops import camera as cam_lib
-from cudaneuralrender_tpu.ops import march, prepass, sdf
+import cudaneuralrender as cnr
+from cudaneuralrender.ops import camera as cam_lib
+from cudaneuralrender.ops import march, prepass, sdf
 
 
 def _setup(res=32, ry=30.0):

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import cudaneuralrender_tpu as cnr
+import cudaneuralrender as cnr
 
 
 ANALYTIC_CFG = cnr.RenderConfig(
@@ -57,7 +57,7 @@ def test_render_plane1_smoke(plane1_params):
     assert 0.02 < fg < 0.9, f"foreground fraction {fg}"
 
 
-def test_staged_full_precision_matches_dense(plane1_params):
+def test_staged_full_precision_matches_dense(csg_params):
     """march_precision='full' is the reference-semantics contract: the same
     march ordering as the dense path (no grid skip, no coarse phase, HIGHEST
     matmuls). The staged path recomputes the budget from (pos, t) per bucket
@@ -66,10 +66,10 @@ def test_staged_full_precision_matches_dense(plane1_params):
     pixels — hits must agree everywhere but a sliver, and common-hit pixels
     must match tightly."""
     cfg = cnr.RenderConfig(width=32, height=32, scene="neural_raw", max_steps=300)
-    dense = np.asarray(cnr.render_image(plane1_params, cnr.Camera(), cfg))
+    dense = np.asarray(cnr.render_image(csg_params, cnr.Camera(), cfg))
     staged = np.asarray(
         cnr.render_staged(
-            plane1_params, cnr.Camera(),
+            csg_params, cnr.Camera(),
             cfg.replace(march_impl="staged", stage_steps=16, march_precision="full",
                         rgba_packed=False),
         )
@@ -82,13 +82,15 @@ def test_staged_full_precision_matches_dense(plane1_params):
     np.testing.assert_allclose(staged[both], dense[both], atol=1e-4)
 
 
-def test_staged_mixed_matches_dense_structurally(plane1_params):
+def test_staged_mixed_matches_dense_structurally(csg_params):
     """The default mixed path (grid skip + precision ladder) is allowed
-    silhouette-level wobble only: hits agree and common-hit colors match."""
+    silhouette-level wobble only: hits agree and common-hit colors match.
+    Seen from csg_demo's golden camera (tests/test_artifact.py)."""
     cfg = cnr.RenderConfig(width=32, height=32, scene="neural_raw", max_steps=300)
-    dense = np.asarray(cnr.render_image(plane1_params, cnr.Camera(), cfg))
+    cam = cnr.Camera(rotation_y=30.0, rotation_x=-20.0)
+    dense = np.asarray(cnr.render_image(csg_params, cam, cfg))
     staged = np.asarray(
-        cnr.render_staged(plane1_params, cnr.Camera(),
+        cnr.render_staged(csg_params, cam,
                           cfg.replace(march_impl="staged", rgba_packed=False))
     )
     hit_d = dense[..., 3] > 0
@@ -102,7 +104,7 @@ def test_staged_mixed_matches_dense_structurally(plane1_params):
 
 
 def test_render_matcap_mode(plane1_params, matcap_path):
-    from cudaneuralrender_tpu.utils import image_io
+    from cudaneuralrender.utils import image_io
 
     matcap = jnp.asarray(image_io.load_matcap(matcap_path))
     cfg = cnr.RenderConfig(width=32, height=32, scene="neural_raw", max_steps=200, shading="matcap")
@@ -124,7 +126,7 @@ def test_renderer_class_and_save(tmp_path, plane1_params):
     ppm = tmp_path / "out.ppm"
     r.save_frame(str(png), cnr.Camera())
     r.save_frame(str(ppm), cnr.Camera())
-    from cudaneuralrender_tpu.utils import image_io
+    from cudaneuralrender.utils import image_io
 
     np.testing.assert_array_equal(image_io.load_png(str(png)), frame)
     np.testing.assert_array_equal(image_io.load_ppm(str(ppm)), frame[..., :3])
@@ -164,9 +166,9 @@ def test_render_sequence_matches_staged(plane1_params):
 
 def test_staged_mid_eps_phase(plane1_params):
     """The optional HIGH middle ladder phase (mid_eps) must agree with the
-    two-phase mixed path (it exercises the emulated 3-pass rung kernel on
-    TPU; on CPU every precision is f32, so images should be very close)."""
-    from cudaneuralrender_tpu.render import renderer
+    two-phase mixed path (on the GPU its HIGH phase runs TF32; on CPU every
+    precision is f32, so images should be very close)."""
+    from cudaneuralrender.render import renderer
 
     cfg = cnr.RenderConfig(width=32, height=32, scene="neural_raw",
                            max_steps=256, march_impl="staged", rgba_packed=False)
@@ -182,7 +184,7 @@ def test_staged_mid_eps_phase(plane1_params):
 def test_staged_coarse_high_precision(plane1_params):
     """coarse_precision="high" (emulated 3-pass coarse kernel to a tighter
     eps) must agree with the default coarse phase (CPU: both exact f32)."""
-    from cudaneuralrender_tpu.render import renderer
+    from cudaneuralrender.render import renderer
 
     cfg = cnr.RenderConfig(width=32, height=32, scene="neural_raw",
                            max_steps=256, march_impl="staged", rgba_packed=False)
@@ -201,7 +203,7 @@ def test_rgba_packed_is_exact_u8_quantization(plane1_params):
     quantized through the reference's u8 display format (rgbaFloatToInt,
     volumeRender_kernel.cu:266-274): saturate, x255, truncate, /255. The
     saved PNG bytes are therefore identical either way."""
-    from cudaneuralrender_tpu.utils import image_io
+    from cudaneuralrender.utils import image_io
 
     cfg = cnr.RenderConfig(width=32, height=32, scene="neural_raw",
                            max_steps=300, march_impl="staged")
@@ -260,7 +262,7 @@ def test_warm_init_state_guard_semantics():
     the reference invariant budget == tfar - (t - tnear); non-finite /
     non-positive t_init lanes stay cold."""
     import jax.numpy as jnp
-    from cudaneuralrender_tpu.ops import march
+    from cudaneuralrender.ops import march
 
     origin = jnp.asarray([0.0, 0.0, -2.0])
     dirs = jnp.asarray([[0.0, 0.0, 1.0]] * 4)
@@ -309,9 +311,9 @@ def test_overflow_widen_consistent_across_entry_points(plane1_params):
     logic is one shared helper, not four drifting copies (round-3 VERDICT
     weak #5). mid_eps>0 makes the HIGH mid phase real so its schedule's
     widening is exercised too."""
-    from cudaneuralrender_tpu.diff.solve import solve_surface
-    from cudaneuralrender_tpu.render import multigeom
-    from cudaneuralrender_tpu.render import renderer as renderer_lib
+    from cudaneuralrender.diff.solve import solve_surface
+    from cudaneuralrender.render import multigeom
+    from cudaneuralrender.render import renderer as renderer_lib
 
     base = cnr.RenderConfig(
         width=32, height=32, scene="neural_raw", max_steps=300,
@@ -342,13 +344,39 @@ def test_overflow_widen_consistent_across_entry_points(plane1_params):
     assert learned[0].mid_schedule[0][0] < base.mid_schedule[0][0]
 
 
+def test_render_sequence_overflow_widens_once(csg_params):
+    """Several poses that all overflow the first refine bucket re-render
+    with ONE widened schedule sized from their largest rung counts (one
+    compiled program for the batch), which the memo learns; each frame
+    equals render_staged with that schedule."""
+    from cudaneuralrender.render import renderer as renderer_lib
+
+    base = cnr.RenderConfig(
+        width=32, height=32, scene="neural_raw", max_steps=300,
+        march_impl="staged", compact_min=8, rgba_packed=False,
+        refine_schedule=((1024, 4), (1024, 0)),
+    )
+    cams = [cnr.Camera(rotation_y=30.0 + 20.0 * i, rotation_x=-20.0) for i in range(3)]
+    cnr.reset_schedule_memo()
+    try:
+        stats = []
+        outs = cnr.render_sequence(csg_params, cams, base, stats_out=stats)
+        assert all(s["refine_overflow"] > 0 for s in stats), stats
+        widened = renderer_lib.memo_lookup(csg_params, base)
+        assert widened != base and widened.refine_caps, widened
+        for cam, out in zip(cams, outs):
+            want = cnr.render_staged(csg_params, cam, widened)
+            np.testing.assert_array_equal(np.asarray(out), np.asarray(want))
+    finally:
+        cnr.reset_schedule_memo()
+
 def test_schedule_memo_keyed_by_geometry(plane1_params, car1_path):
     """Two geometries sharing one config must not share one memo slot: a
     widened schedule learned for geometry A must not redirect geometry B
     (round-3 VERDICT weak #6)."""
-    from cudaneuralrender_tpu.models import checkpoint
-    from cudaneuralrender_tpu.render import renderer as renderer_lib
-    from cudaneuralrender_tpu.utils import memo as memo_store
+    from cudaneuralrender.models import checkpoint
+    from cudaneuralrender.render import renderer as renderer_lib
+    from cudaneuralrender.utils import memo as memo_store
 
     car = checkpoint.load(car1_path)
     memo_store.tag_geometry(plane1_params, "plane_1.h5")
@@ -368,8 +396,8 @@ def test_schedule_memo_persists_across_processes(tmp_path, monkeypatch,
     a fresh process (simulated by clearing the in-process memo + store
     cache): the overflow double-render is paid once, ever (round-3 VERDICT
     item 8)."""
-    from cudaneuralrender_tpu.models import checkpoint
-    from cudaneuralrender_tpu.render import renderer as renderer_lib
+    from cudaneuralrender.models import checkpoint
+    from cudaneuralrender.render import renderer as renderer_lib
 
     store = tmp_path / "schedmemo.json"
     monkeypatch.setenv("CNR_SCHEDULE_MEMO", str(store))
@@ -402,7 +430,7 @@ def test_adaptive_caps_learned_and_parity(plane1_params):
     dispatch is pixel-identical, caps never exceed the divisor defaults,
     and they are non-increasing down the ladder (rung i sorts within rung
     i-1's bucket)."""
-    from cudaneuralrender_tpu.render import renderer as renderer_lib
+    from cudaneuralrender.render import renderer as renderer_lib
 
     cnr.reset_schedule_memo()
     cfg = cnr.RenderConfig(width=128, height=128, scene="neural_raw",
@@ -430,7 +458,7 @@ def test_adaptive_caps_overflow_retunes(plane1_params):
     """Caps a frame outgrows raise the refine-overflow retry, which RESIZES
     them from the overflowing frame's own recorded rung stats
     (renderer._widen_or_retune) — one retry, correct image, memo taught."""
-    from cudaneuralrender_tpu.render import renderer as renderer_lib
+    from cudaneuralrender.render import renderer as renderer_lib
 
     cnr.reset_schedule_memo()
     base = cnr.RenderConfig(width=64, height=64, scene="neural_raw",
@@ -458,7 +486,7 @@ def test_widen_doubles_caps():
     """_widen doubles explicit caps alongside halving divisors, clamped at
     the image size (a bucket spanning the image cannot overflow, so the
     retry loop terminates)."""
-    from cudaneuralrender_tpu.render import renderer as renderer_lib
+    from cudaneuralrender.render import renderer as renderer_lib
 
     cfg = cnr.RenderConfig(width=64, height=64,
                            refine_caps=(3000, 2000, 1000, 500))
@@ -471,7 +499,7 @@ def test_widen_doubles_caps():
 def test_tune_caps_ineligible_paths():
     """tune_caps returns None for non-mixed configs, disabled adaptivity,
     already-capped configs, and mismatched stats lengths."""
-    from cudaneuralrender_tpu.render import renderer as renderer_lib
+    from cudaneuralrender.render import renderer as renderer_lib
 
     cfg = cnr.RenderConfig(width=512, height=512)
     acts = [40000, 20000, 5000, 100]
@@ -488,7 +516,7 @@ def test_tune_caps_ineligible_paths():
 def test_interactive_packed_frame_bytes(plane1_params):
     """The u32-packed interactive display path (quarter the device->host
     transfer) yields byte-identical frames to the f32 path."""
-    from cudaneuralrender_tpu.utils import image_io
+    from cudaneuralrender.utils import image_io
 
     cnr.reset_schedule_memo()
     cfg = cnr.RenderConfig(width=64, height=64, scene="neural_raw",

@@ -12,7 +12,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import cudaneuralrender_tpu as cnr
+import cudaneuralrender as cnr
 
 
 def _random_schedule(rng):

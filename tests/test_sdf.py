@@ -6,7 +6,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cudaneuralrender_tpu.ops import sdf
+from cudaneuralrender.ops import sdf
 
 
 def test_sphere():
@@ -85,7 +85,7 @@ def test_many_sphere_centers_match_loop():
             x_off = 0.5
         centers.append((-x_off, -y_off, 0.7))  # world center = -offset, z at frame 0
         x_off -= 0.4
-    from cudaneuralrender_tpu.ops.sdf import _MANY_SPHERE_CENTERS
+    from cudaneuralrender.ops.sdf import _MANY_SPHERE_CENTERS
 
     got = _MANY_SPHERE_CENTERS.copy()
     got[:, 2] = 0.7  # frame-0 z handled inside many_sphere
@@ -138,7 +138,7 @@ def test_many_cylinder_cut_windowed_surface_band(plane1_params):
     consumers evaluate (points sit on the surface)."""
     import jax
 
-    from cudaneuralrender_tpu.models import mlp
+    from cudaneuralrender.models import mlp
 
     pts = jax.random.uniform(
         jax.random.key(3), (16384, 3), minval=-1.2, maxval=1.2

@@ -3,7 +3,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cudaneuralrender_tpu.ops import sdf, shading
+from cudaneuralrender.ops import sdf, shading
 
 
 def test_autodiff_normals_on_sphere():

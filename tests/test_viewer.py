@@ -8,8 +8,8 @@ import urllib.request
 import numpy as np
 import pytest
 
-import cudaneuralrender_tpu as cnr
-from cudaneuralrender_tpu.render import viewer
+import cudaneuralrender as cnr
+from cudaneuralrender.render import viewer
 
 
 @pytest.fixture(scope="module")
@@ -75,8 +75,8 @@ def test_render_interactive_matches_sync(plane1_params):
     """The optimistic interactive path must produce the same pixels as the
     synchronous render on fast-path frames, and its deferred check must
     teach the schedule memo after an overflow frame."""
-    import cudaneuralrender_tpu as cnr
-    from cudaneuralrender_tpu.render import renderer as renderer_lib
+    import cudaneuralrender as cnr
+    from cudaneuralrender.render import renderer as renderer_lib
 
     cnr.reset_schedule_memo()
     cfg = cnr.RenderConfig(width=32, height=32, scene="neural_raw",
